@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from ccve_tpu.control.bandit import CompactTuner, MultiArmedBandit
+from ccve.control.bandit import CompactTuner, MultiArmedBandit
 
 
 def test_warm_start_round_robin():
@@ -86,8 +86,8 @@ def test_device_bandit_matches_host_math():
     import jax.numpy as jnp
     import numpy as np
 
-    from ccve_tpu.control import device_bandit as db
-    from ccve_tpu.control.bandit import MultiArmedBandit
+    from ccve.control import device_bandit as db
+    from ccve.control.bandit import MultiArmedBandit
 
     n_arms = 4
     rng = np.random.default_rng(11)
@@ -125,7 +125,7 @@ def test_device_bandit_early_commit():
     import jax.numpy as jnp
     import numpy as np
 
-    from ccve_tpu.control import device_bandit as db
+    from ccve.control import device_bandit as db
 
     n_arms = 3
     dev = db.init_state(1, n_arms)

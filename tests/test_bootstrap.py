@@ -35,7 +35,7 @@ def _run(args, n_local_devices, timeout=600):
     )
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return subprocess.Popen(
-        [sys.executable, "-m", "ccve_tpu.cli", "--cpu", "dist"] + args,
+        [sys.executable, "-m", "ccve.cli", "--cpu", "dist"] + args,
         env=env,
         stdout=subprocess.PIPE,
         stderr=subprocess.PIPE,
@@ -96,7 +96,7 @@ def test_init_distributed_env_plumbing(monkeypatch):
     """Arg/env resolution (no cluster): the degenerate path must not
     touch jax.distributed, and env vars must round-trip into the
     initialize call (captured via monkeypatch)."""
-    from ccve_tpu.parallel import bootstrap
+    from ccve.parallel import bootstrap
 
     monkeypatch.delenv("CCVE_COORDINATOR", raising=False)
     monkeypatch.delenv("CCVE_NUM_PROCESSES", raising=False)
@@ -131,6 +131,30 @@ def test_init_distributed_env_plumbing(monkeypatch):
     }
     assert info == {
         "initialized": True, "process_id": 3, "num_processes": 4
+    }
+
+
+def test_init_distributed_local_device_ids(monkeypatch):
+    """Several processes on one host: each names its own cards, and the
+    list reaches jax.distributed.initialize unchanged."""
+    import jax
+
+    from ccve.parallel import bootstrap
+
+    calls = {}
+
+    class FakeDistributed:
+        @staticmethod
+        def initialize(**kwargs):
+            calls.update(kwargs)
+
+    monkeypatch.setattr(jax, "distributed", FakeDistributed)
+    monkeypatch.setattr(jax, "process_index", lambda: 1, raising=False)
+    monkeypatch.setattr(jax, "process_count", lambda: 2, raising=False)
+    bootstrap.init_distributed("localhost:9999", 2, 1, local_device_ids=[1])
+    assert calls == {
+        "coordinator_address": "localhost:9999", "num_processes": 2,
+        "process_id": 1, "local_device_ids": [1],
     }
 
 

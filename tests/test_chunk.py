@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ccve_tpu.core import chunk as C
+from ccve.core import chunk as C
 import pytest
 
 
@@ -90,7 +90,7 @@ def test_compact_rows_matches_compress_gather():
     import jax.numpy as jnp
     import numpy as np
 
-    from ccve_tpu.core.chunk import compact_rows, compress_indices
+    from ccve.core.chunk import compact_rows, compress_indices
 
     rng = np.random.default_rng(5)
     for block, ncols in [(128, 3), (256, 1)]:

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from ccve_tpu import cli
-from ccve_tpu.bench.micro import run_micro_bench
-from ccve_tpu.config import EngineConfig, PayloadMode
-from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
-from ccve_tpu.exec.oracle import OracleBuildTable, oracle_pipeline
+from ccve import cli
+from ccve.bench.micro import run_micro_bench
+from ccve.config import EngineConfig, PayloadMode
+from ccve.core.datagen import gen_probe_table, gen_rhs_table
+from ccve.exec.oracle import OracleBuildTable, oracle_pipeline
 
 
 def test_cli_pipeline_smoke(capsys):
@@ -72,17 +72,17 @@ def test_micro_bench_variants_agree():
         assert "ns/item" in r.phase_profiler.report(total_items=r.n_keys)
 
 
-def test_roofline_report():
-    from ccve_tpu.bench.roofline import count_side_model, report
 
-    ops = count_side_model(1_000_000, 16_000_000)
-    # every operator's speed-of-light is the max of its two bounds
-    for op in ops:
-        assert op.t_sol == max(op.t_hbm, op.t_alu)
-    # the sort stages dominate and are ALU-bound on this hardware
-    assert ops[1].bound == "ALU" and ops[2].bound == "ALU"
-    txt = report(measured_s=0.0259)
-    assert "% of model speed-of-light" in txt
-    # the model must bracket the measured headline (~25.9 ms) from below
-    total_sol = sum(op.t_sol for op in ops)
-    assert 0.015 < total_sol < 0.0259
+def test_baseline_refuses_cpu_without_flag(capsys):
+    import pytest
+
+    with pytest.raises(SystemExit, match="measures the GPU"):
+        cli.main(["baseline", "--config", "1", "--tiny"])
+
+
+def test_baseline_cpu_flag_names_device(capsys):
+    import json
+
+    assert cli.main(["--cpu", "baseline", "--config", "1", "--tiny"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["device"]["platform"] == "cpu" and out["count"] > 0

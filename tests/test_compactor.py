@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ccve_tpu.core.chunk import Chunk, from_rows, to_rows
-from ccve_tpu.ops import compactor as comp
+from ccve.core.chunk import Chunk, from_rows, to_rows
+from ccve.ops import compactor as comp
 
 BLOCK = 128
 

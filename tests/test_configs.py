@@ -3,7 +3,7 @@ its counts against the oracle or the single-device reference)."""
 
 import pytest
 
-from ccve_tpu.bench import configs
+from ccve.bench import configs
 
 
 def test_config1_tiny():
@@ -77,7 +77,7 @@ def test_config6_tiny(tmp_path):
 def test_config1_materialize_tiny():
     """Materializing axis: tuples-out with checksum + sampled-triple
     verification (the asserts live inside the config function)."""
-    from ccve_tpu.bench.configs import config1_materialize
+    from ccve.bench.configs import config1_materialize
 
     out = config1_materialize(n_build=4096, n_probe=65536)
     assert out["payload_checksum_ok"] and out["tuples_out"] > 0

@@ -7,8 +7,8 @@ import ctypes
 import numpy as np
 import pytest
 
-from ccve_tpu import native
-from ccve_tpu.core import datagen
+from ccve import native
+from ccve.core import datagen
 
 needs_native = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"

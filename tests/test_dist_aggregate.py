@@ -4,10 +4,10 @@ group-set parity with the single-chip sort-based aggregate."""
 import numpy as np
 import pytest
 
-from ccve_tpu.core.datagen import gen_zipf_keys
-from ccve_tpu.ops.aggregate import hash_aggregate
-from ccve_tpu.parallel.dist_aggregate import collect_groups, dist_aggregate
-from ccve_tpu.parallel.distributed import make_join_mesh
+from ccve.core.datagen import gen_zipf_keys
+from ccve.ops.aggregate import hash_aggregate
+from ccve.parallel.dist_aggregate import collect_groups, dist_aggregate
+from ccve.parallel.distributed import make_join_mesh
 
 
 def _oracle_rows(keys, values):

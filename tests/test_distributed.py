@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from ccve_tpu.config import PayloadMode
-from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
-from ccve_tpu.exec.oracle import OracleBuildTable, oracle_pipeline
-from ccve_tpu.parallel.distributed import (
+from ccve.config import PayloadMode
+from ccve.core.datagen import gen_probe_table, gen_rhs_table
+from ccve.exec.oracle import OracleBuildTable, oracle_pipeline
+from ccve.parallel.distributed import (
     dist_bulk_count,
     make_join_mesh,
     partition_tables,
@@ -60,7 +60,7 @@ def test_dist_overflow_flag():
 
 
 def test_dist_ring_matches_oracle():
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         dist_bulk_count_ring,
         partition_tables_block,
     )
@@ -87,7 +87,7 @@ def test_dist_ring_chunked_matches_serial():
     """Pipelined ring (n_chunks>1) must agree exactly with the
     serialized ring, including when per-device rows don't divide the
     chunk count (padding path)."""
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         dist_bulk_count_ring,
         partition_tables_block,
     )
@@ -113,7 +113,7 @@ def test_dist_hot_split_beats_skew():
     overflows the plain shuffle at tight capacity, while the split path
     keeps the hot key out of the shuffle entirely — correct counts, no
     overflow, low skew."""
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         detect_heavy_hitters,
         partition_tables_split,
     )
@@ -149,7 +149,7 @@ def test_dist_hot_split_beats_skew():
 def test_dist_hot_split_multilevel_mixed():
     """A HotSplitTables level can coexist with plain partitioned levels
     in one N-way pipeline."""
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         detect_heavy_hitters,
         partition_tables_split,
     )
@@ -178,7 +178,7 @@ def test_dist_hier_matches_oracle(shape, kind):
     """Hierarchical (dcn, ici) 2-hop shuffle vs the oracle — an ICI hop
     to the owner's chip column, then keys cross the dcn axis exactly
     once in host-aggregated grids, landing at their owner."""
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         dist_bulk_count_hier,
         make_join_mesh_2d,
         partition_tables,
@@ -207,7 +207,7 @@ def test_dist_hier_matches_oracle(shape, kind):
 
 def test_dist_hier_overflow_detected():
     """Tight caps must flag overflow rather than silently drop keys."""
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         dist_bulk_count_hier,
         make_join_mesh_2d,
         partition_tables,
@@ -230,8 +230,8 @@ def test_dist_expand_matches_single_chip(n_devices):
     triple multiset (the north star's bit-identical-results bar)."""
     import jax.numpy as jnp
 
-    from ccve_tpu.ops.sort_merge import build_sorted, sorted_expand
-    from ccve_tpu.parallel.distributed import dist_bulk_expand
+    from ccve.ops.sort_merge import build_sorted, sorted_expand
+    from ccve.parallel.distributed import dist_bulk_expand
 
     rng = np.random.default_rng(13)
     mesh = make_join_mesh(n_devices)
@@ -261,13 +261,13 @@ def test_dist_pipeline_expand_matches_oracle(payload_mode):
     """N=3-level distributed MATERIALIZED join == oracle_pipeline as a
     row multiset — the north star's bit-identical-results bar for the
     full N-way pipeline, not one level."""
-    from ccve_tpu.config import PayloadMode
-    from ccve_tpu.exec.oracle import (
+    from ccve.config import PayloadMode
+    from ccve.exec.oracle import (
         OracleBuildTable,
         assert_same_multiset,
         oracle_pipeline,
     )
-    from ccve_tpu.parallel.distributed import dist_pipeline_expand
+    from ccve.parallel.distributed import dist_pipeline_expand
 
     mode = (
         PayloadMode.REFERENCE
@@ -299,13 +299,13 @@ def test_dist_pipeline_expand_level_caps():
     join whose worst-case ladder would multiply state by ~8x/level runs
     with per-shard state <= 2x the true live rows, stays multiset-exact,
     and detects (not drops) a cap violation."""
-    from ccve_tpu.config import PayloadMode
-    from ccve_tpu.exec.oracle import (
+    from ccve.config import PayloadMode
+    from ccve.exec.oracle import (
         OracleBuildTable,
         assert_same_multiset,
         oracle_pipeline,
     )
-    from ccve_tpu.parallel.distributed import dist_pipeline_expand
+    from ccve.parallel.distributed import dist_pipeline_expand
 
     rng = np.random.default_rng(31)
     n_parts = 4
@@ -363,7 +363,7 @@ def test_dist_pipeline_expand_level_caps():
 @pytest.mark.parametrize("kind", ["lp", "csr", "sorted"])
 @pytest.mark.parametrize("n_devices", [2, 8])
 def test_dist_bcast_matches_oracle(kind, n_devices):
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         dist_bulk_count_bcast,
         replicate_tables,
     )
@@ -390,7 +390,7 @@ def test_dist_bcast_matches_oracle(kind, n_devices):
 def test_dist_bcast_2d_mesh():
     """The broadcast count runs unchanged on a 2D (dcn, ici) mesh —
     psum over both axes, probe row-sharded over the full device grid."""
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         dist_bulk_count_bcast,
         make_join_mesh_2d,
         replicate_tables,
@@ -417,7 +417,7 @@ def test_dist_bcast_2d_mesh():
 def test_dist_bcast_agrees_with_shuffle():
     """Broadcast and radix-shuffle paths are different communication
     plans for the SAME join: their counts/checksums must agree exactly."""
-    from ccve_tpu.parallel.distributed import (
+    from ccve.parallel.distributed import (
         dist_bulk_count_bcast,
         replicate_tables,
     )

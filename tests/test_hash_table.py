@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ccve_tpu.core.chunk import iota_sel
-from ccve_tpu.core.datagen import gen_rhs_table
-from ccve_tpu.exec.oracle import OracleBuildTable, oracle_join, sort_rows
-from ccve_tpu.ops.hash_table import (
+from ccve.core.chunk import iota_sel
+from ccve.core.datagen import gen_rhs_table
+from ccve.exec.oracle import OracleBuildTable, oracle_join, sort_rows
+from ccve.ops.hash_table import (
     build_csr,
     build_csr_device,
     build_lp,
@@ -23,7 +23,7 @@ def _expected_pairs(probe_keys, build_keys, build_payloads):
     b = OracleBuildTable(build_keys, build_payloads)
     rows = oracle_join(
         probe_keys.reshape(-1, 1), 0, b, payload_mode=__import__(
-            "ccve_tpu.config", fromlist=["PayloadMode"]
+            "ccve.config", fromlist=["PayloadMode"]
         ).PayloadMode.FULL,
     )
     # (probe_key, matched_key, payload)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ccve_tpu.ops.hashing import murmurhash64, murmurhash64_np, murmurhash64_py
-from ccve_tpu import native
+from ccve.ops.hashing import murmurhash64, murmurhash64_np, murmurhash64_py
+from ccve import native
 
 SAMPLES = np.array(
     [0, 1, 2, 3, 255, 256, 2**31 - 1, 2**32, 2**40 + 12345,

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ccve_tpu.core.chunk import Chunk, from_rows, to_rows
-from ccve_tpu.core.datagen import gen_zipf_keys
-from ccve_tpu.ops import filter as flt
-from ccve_tpu.ops.aggregate import dense_aggregate, hash_aggregate
-from ccve_tpu.ops.sort import radix_argsort, radix_sort, radix_sort_pairs
+from ccve.core.chunk import Chunk, from_rows, to_rows
+from ccve.core.datagen import gen_zipf_keys
+from ccve.ops import filter as flt
+from ccve.ops.aggregate import dense_aggregate, hash_aggregate
+from ccve.ops.sort import radix_argsort, radix_sort, radix_sort_pairs
 
 
 def test_filter_chunk_composes_selection():
@@ -93,31 +93,12 @@ def test_radix_sort_pairs_zipf():
     np.testing.assert_array_equal(np.asarray(v), vals[order])
 
 
-def test_matmul_cumsum_i32():
-    from ccve_tpu.ops.scan_utils import cumsum_small_i32
-
-    rng = np.random.default_rng(3)
-    x = (rng.random(10_000) < 0.3).astype(np.int32)
-    got = np.asarray(cumsum_small_i32(jnp.asarray(x)))
-    np.testing.assert_array_equal(got, np.cumsum(x))
-
-
-def test_matmul_cumsum_i64_limbs():
-    from ccve_tpu.ops.scan_utils import cumsum_i64_limbs
-
-    rng = np.random.default_rng(4)
-    x = rng.integers(0, 2**62, size=3000).astype(np.int64)
-    x[::7] = 0
-    got = np.asarray(cumsum_i64_limbs(jnp.asarray(x)))
-    np.testing.assert_array_equal(got, np.cumsum(x))
-
-
 def test_join_dense_aggregate_matches_scatter_path():
     """Aggregate pushdown (join_dense_aggregate) == per-probe psum
     scatter aggregate, on the config-4 shape at small scale."""
-    from ccve_tpu.core.datagen import gen_rhs_table, gen_zipf_keys
-    from ccve_tpu.ops.aggregate import join_dense_aggregate
-    from ccve_tpu.ops.sort_merge import build_sorted, sorted_match_stats
+    from ccve.core.datagen import gen_rhs_table, gen_zipf_keys
+    from ccve.ops.aggregate import join_dense_aggregate
+    from ccve.ops.sort_merge import build_sorted, sorted_match_stats
 
     domain = 257
     keys, payloads = gen_rhs_table(domain, 1)
@@ -137,7 +118,7 @@ def test_join_dense_aggregate_matches_scatter_path():
 
 
 def test_sorted_build_counts_matches_numpy():
-    from ccve_tpu.ops.sort_merge import build_sorted, sorted_build_counts
+    from ccve.ops.sort_merge import build_sorted, sorted_build_counts
 
     rng = np.random.default_rng(11)
     bk = rng.integers(0, 500, 300)  # duplicate build keys

@@ -5,15 +5,15 @@ types, compaction strategies, payload modes, and duplicate multiplicities
 import numpy as np
 import pytest
 
-from ccve_tpu.config import CompactionStrategy, EngineConfig, PayloadMode
-from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
-from ccve_tpu.exec.oracle import (
+from ccve.config import CompactionStrategy, EngineConfig, PayloadMode
+from ccve.core.datagen import gen_probe_table, gen_rhs_table
+from ccve.exec.oracle import (
     OracleBuildTable,
     assert_same_multiset,
     oracle_pipeline,
 )
-from ccve_tpu.exec.pipeline import JoinPipeline
-from ccve_tpu.ops.hash_table import build_csr, build_lp
+from ccve.exec.pipeline import JoinPipeline
+from ccve.ops.hash_table import build_csr, build_lp
 
 BLOCK = 128
 
@@ -150,7 +150,7 @@ def test_pipeline_count_only():
 def test_pipeline_with_prefilter():
     """BASELINE config 2 shape: ~10% selective filter feeding the join —
     under-filled chunks exercised against full compaction."""
-    from ccve_tpu.ops import filter as flt
+    from ccve.ops import filter as flt
 
     cfg = EngineConfig(
         block_size=BLOCK,
@@ -188,7 +188,7 @@ def test_pipeline_with_prefilter():
 def test_occupancy_exported_to_zebra(tmp_path):
     import dataclasses
 
-    from ccve_tpu.utils.profiler import ZebraProfiler
+    from ccve.utils.profiler import ZebraProfiler
 
     ZebraProfiler.get().clear()
     cfg, probe, tables, expected = _setup(
@@ -270,7 +270,7 @@ def test_pipeline_interaction_matrix(branchy, lanes):
     prefilter x FULL compaction x count-only x branchy x lanes."""
     import dataclasses
 
-    from ccve_tpu.ops import filter as flt
+    from ccve.ops import filter as flt
 
     cfg = EngineConfig(
         block_size=BLOCK,
@@ -327,12 +327,12 @@ def test_pipeline_preload_matches_streamed():
     convention) must be observationally identical to the streamed feed."""
     import numpy as np
 
-    from ccve_tpu.config import CompactionStrategy, EngineConfig, PayloadMode
-    from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
-    from ccve_tpu.exec.pipeline import JoinPipeline
-    from ccve_tpu.exec.sorted_pipeline import SortedPipeline
-    from ccve_tpu.ops.hash_table import build_csr
-    from ccve_tpu.ops.sort_merge import build_sorted
+    from ccve.config import CompactionStrategy, EngineConfig, PayloadMode
+    from ccve.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve.exec.pipeline import JoinPipeline
+    from ccve.exec.sorted_pipeline import SortedPipeline
+    from ccve.ops.hash_table import build_csr
+    from ccve.ops.sort_merge import build_sorted
 
     cfg = EngineConfig(
         block_size=128, n_joins=2, lhs_size=700, rhs_size=96,
@@ -345,7 +345,7 @@ def test_pipeline_preload_matches_streamed():
         JoinPipeline([build_csr(keys, payloads)] * 2, cfg,
                      result_capacity=8192),
         SortedPipeline([build_sorted(keys, payloads)] * 2, cfg,
-                       result_capacity=8192, use_kernel=False),
+                       result_capacity=8192),
     ):
         streamed = pipe.run(probe)
         pre = pipe.run(probe, preload=True)
@@ -363,11 +363,11 @@ def test_pipeline_zebra_profile_segments():
     stays exact."""
     import numpy as np
 
-    from ccve_tpu.config import CompactionStrategy, EngineConfig, PayloadMode
-    from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
-    from ccve_tpu.exec.pipeline import JoinPipeline
-    from ccve_tpu.ops.hash_table import build_csr
-    from ccve_tpu.utils.profiler import ZebraProfiler
+    from ccve.config import CompactionStrategy, EngineConfig, PayloadMode
+    from ccve.core.datagen import gen_probe_table, gen_rhs_table
+    from ccve.exec.pipeline import JoinPipeline
+    from ccve.ops.hash_table import build_csr
+    from ccve.utils.profiler import ZebraProfiler
 
     cfg = EngineConfig(
         block_size=128, n_joins=2, lhs_size=2000, rhs_size=96,

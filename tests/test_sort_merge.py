@@ -1,17 +1,22 @@
 """Sort-merge join stats vs the hash paths and the oracle."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ccve_tpu.config import PayloadMode
-from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table, gen_zipf_keys
-from ccve_tpu.exec.bulk import bulk_count, lp_match_stats
-from ccve_tpu.exec.oracle import OracleBuildTable, oracle_pipeline
-from ccve_tpu.ops.hash_table import build_lp
-from ccve_tpu.ops.sort_merge import (
+from ccve.config import PayloadMode
+from ccve.core.datagen import gen_probe_table, gen_rhs_table, gen_zipf_keys
+from ccve.exec.bulk import bulk_count, lp_match_stats
+from ccve.exec.oracle import OracleBuildTable, oracle_pipeline
+from ccve.ops.hash_table import build_lp
+from ccve.ops.sort_merge import (
     build_sorted,
     rank_table,
+    sorted_build_counts,
+    sorted_expand,
+    sorted_expand_tiled,
     sorted_match_ranks,
     sorted_match_stats,
     sorted_match_totals,
@@ -71,7 +76,7 @@ def test_sorted_match_totals():
     st = build_sorted(keys, payloads)
     rng = np.random.default_rng(9)
     probe = jnp.asarray(rng.integers(0, keys.max() + 2, 700).astype(np.int64))
-    from ccve_tpu.ops.sort_merge import sorted_match_totals
+    from ccve.ops.sort_merge import sorted_match_totals
 
     stats = sorted_match_stats(st, probe)
     count, psum = sorted_match_totals(st, probe)
@@ -79,12 +84,14 @@ def test_sorted_match_totals():
     assert int(psum) == int(np.asarray(stats.psum).sum())
 
 
+
 def test_packed_totals_path():
-    """Range-adaptive single-operand packed sort must agree with the
-    general path, including out-of-range probe keys (clamped)."""
+    """Range-adaptive single-operand count-side sort (i32 tagged keys)
+    must agree with the general two-key path, including out-of-range
+    probe keys (clamped)."""
     keys, payloads = gen_rhs_table(200, 2)
     st = build_sorted(keys, payloads)
-    assert st.pack is not None
+    assert st.pack32 is not None
     rng = np.random.default_rng(13)
     probe = np.concatenate(
         [
@@ -92,13 +99,10 @@ def test_packed_totals_path():
             np.array([keys.min() - 1, keys.max() + 1, 2**40]),
         ]
     ).astype(np.int64)
-    from ccve_tpu.ops.sort_merge import SortedTable, sorted_match_totals
-
     pd = jnp.asarray(probe)
-    c_ref, p_ref = sorted_match_totals(
-        SortedTable(st.keys, st.payloads, pack=None), pd, use_kernel=False
-    )
-    c_pk, p_pk = sorted_match_totals(st, pd, use_kernel=False)
+    general = dataclasses.replace(st, pack32=None, span62=False)
+    c_ref, p_ref = sorted_match_totals(general, pd)
+    c_pk, p_pk = sorted_match_totals(st, pd)
     assert int(c_pk) == int(c_ref)
     assert int(p_pk) == int(p_ref)
 
@@ -107,45 +111,157 @@ def test_pack_meta_rejects_wide_ranges():
     keys = np.array([0, 2**61], dtype=np.int64)
     payloads = np.array([5, 6], dtype=np.int64)
     st = build_sorted(keys, payloads)
-    assert st.pack is None  # falls back to the 2-operand path
+    assert st.pack32 is None  # falls back to the int64 tagged stream
+    assert st.span62
     probe = jnp.asarray(np.array([0, 2**61, 7], dtype=np.int64))
-    from ccve_tpu.ops.sort_merge import sorted_match_totals
-
-    c, p = sorted_match_totals(st, probe, use_kernel=False)
+    c, p = sorted_match_totals(st, probe)
     assert int(c) == 2 and int(p) == 11
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("probe_dtype", [np.int64, np.int32])
-def test_pack32_padded_pipeline(probe_dtype):
-    """The TPU count-side path end-to-end in interpret mode: i32 pack
-    (narrow or widened probe column), padded hybrid sort, padded
-    unequal merge, dense-counts kernel with phantom +INF build entries
-    (`extra`) — against the XLA scan path on the same data. n is chosen
-    to exceed the pre-sort chunk so the padded branch actually runs."""
-    from jax.experimental.pallas import tpu as pltpu
+# ---------------------------------------------------------------------------
+# Every route against NumPy: stream lengths odd, below and above a
+# power-of-two boundary; negative keys; probes outside the build range
+# ---------------------------------------------------------------------------
 
-    from ccve_tpu.ops.sort_merge import sorted_match_totals
+SIZES = [100, 2048, 4095, 5000, 16385, 33333]
 
-    m = 1000
-    keys, payloads = gen_rhs_table(m, 2)
-    st = build_sorted(keys, payloads)
-    rng = np.random.default_rng(11)
-    probe = rng.integers(0, m, 150_000).astype(probe_dtype)
-    ref_c, ref_p = sorted_match_totals(
-        st, jnp.asarray(probe.astype(np.int64)), use_kernel=False
+# key span of the build table -> which count-side stream it takes
+SPANS = {
+    "pack32": (-1000, 5000),  # i32 tagged stream
+    "span62": (-(2**40), 2**40),  # int64 tagged stream
+    "full": (np.iinfo(np.int64).min + 5, np.iinfo(np.int64).max - 5),
+}
+
+
+def _numpy_setup(n, span, seed):
+    """Build table (m ~ n/8, duplicates included) and probes: half drawn
+    from the build keys, half uniform over twice the build range (so
+    below and above it), plus the int64 extremes."""
+    lo, hi = SPANS[span]
+    rng = np.random.default_rng(seed)
+    m = max(n // 8, 3)
+    keys = rng.integers(lo, hi, m, dtype=np.int64)
+    keys[: m // 4] = keys[m // 4 : 2 * (m // 4)]  # duplicate runs
+    payloads = rng.integers(-(2**40), 2**40, m, dtype=np.int64)
+    wide_lo = max(2 * lo, np.iinfo(np.int64).min) if lo < 0 else -hi
+    wide_hi = min(2 * hi, np.iinfo(np.int64).max)
+    probe = np.concatenate(
+        [
+            rng.choice(keys, n // 2),
+            rng.integers(wide_lo, wide_hi, n - n // 2 - 2, dtype=np.int64),
+            np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max]),
+        ]
     )
-    with pltpu.force_tpu_interpret_mode():
-        c, p = sorted_match_totals(st, jnp.asarray(probe), use_kernel=True)
-    assert int(c) == int(ref_c)
-    assert int(p) == int(ref_p)
+    rng.shuffle(probe)
+    table = build_sorted(keys, payloads)
+    assert (table.pack32 is not None) == (span == "pack32")
+    assert table.span62 == (span != "full")
+    return table, keys, payloads, probe
+
+
+def _numpy_stats(keys, payloads, probe):
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    lo = np.searchsorted(sk, probe, "left")
+    hi = np.searchsorted(sk, probe, "right")
+    cpay = np.concatenate([[0], np.cumsum(payloads[order])])
+    return sk, lo, hi - lo, cpay[hi] - cpay[lo]
+
+
+@pytest.mark.parametrize("span", list(SPANS))
+@pytest.mark.parametrize("n", SIZES)
+def test_count_side_matches_numpy(n, span):
+    """Per-build-row counts and totals on each count-side route."""
+    table, keys, payloads, probe = _numpy_setup(n, span, seed=n)
+    sk, _, mult, psum = _numpy_stats(keys, payloads, probe)
+    bc = np.asarray(sorted_build_counts(table, jnp.asarray(probe)))
+    assert np.array_equal(bc, np.searchsorted(np.sort(probe), sk, "right")
+                          - np.searchsorted(np.sort(probe), sk, "left"))
+    c, p = sorted_match_totals(table, jnp.asarray(probe))
+    assert int(c) == int(mult.sum())
+    assert int(p) == int(psum.sum())
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_stats_matches_numpy(n):
+    """Per-probe (mult, psum) in probe order, negative payloads through
+    the segmented-scan base recovery."""
+    table, keys, payloads, probe = _numpy_setup(n, "span62", seed=n + 1)
+    _, _, mult, psum = _numpy_stats(keys, payloads, probe)
+    st = sorted_match_stats(table, jnp.asarray(probe), allow_negative=True)
+    assert np.array_equal(np.asarray(st.mult), mult)
+    assert np.array_equal(np.asarray(st.psum), psum)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_ranks_matches_numpy(n):
+    """(mult, start) from the rank twin: start is the first matching row
+    of the SORTED table."""
+    table, keys, payloads, probe = _numpy_setup(n, "pack32", seed=n + 2)
+    _, start, mult, _ = _numpy_stats(keys, payloads, probe)
+    m_got, s_got = sorted_match_ranks(rank_table(table), jnp.asarray(probe))
+    m_got, s_got = np.asarray(m_got), np.asarray(s_got)
+    assert np.array_equal(m_got, mult)
+    assert np.array_equal(s_got[mult > 0], start[mult > 0])
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_expand_matches_numpy(n):
+    """Every matched (row, key, payload) triple, exactly once, with the
+    prefix-count + scatter compaction."""
+    table, keys, payloads, probe = _numpy_setup(n, "pack32", seed=n + 3)
+    order = np.argsort(keys, kind="stable")
+    sk, sp = keys[order], payloads[order]
+    lo = np.searchsorted(sk, probe, "left")
+    hi = np.searchsorted(sk, probe, "right")
+    expected = sorted(
+        (i, int(sk[j]), int(sp[j]))
+        for i in range(n)
+        for j in range(lo[i], hi[i])
+    )
+    cap = n * table.max_mult
+    rows, k, p, total = sorted_expand(table, jnp.asarray(probe), cap)
+    rows, k, p = map(np.asarray, (rows, k, p))
+    got = sorted(
+        (int(r), int(a), int(b)) for r, a, b in zip(rows, k, p) if r >= 0
+    )
+    assert int(total) == len(expected)
+    assert got == expected
+    assert (rows[len(expected):] == -1).all()
+
+
+@pytest.mark.parametrize("probe_dtype", [np.int64, np.int32])
+def test_pack32_out_of_range_probes(probe_dtype):
+    """Probe keys outside the build range (below kmin, above kmax, the
+    column type's extremes) clamp to matchless keys on the i32 stream,
+    for a narrow (i32) and a wide (int64) probe column alike."""
+    keys = (np.arange(500, dtype=np.int64) * 7) + 1000  # kmin=1000
+    payloads = np.arange(500, dtype=np.int64) + 1
+    st = build_sorted(keys, payloads)
+    assert st.pack32 is not None
+    rng = np.random.default_rng(3)
+    lo = np.iinfo(probe_dtype).min
+    hi = np.iinfo(probe_dtype).max
+    probe = np.concatenate(
+        [
+            rng.choice(keys, 9000),
+            np.full(200, lo),
+            np.full(200, hi),
+            np.array([999, 1000, int(keys[-1]), int(keys[-1]) + 1] * 50),
+            rng.integers(-5000, 10000, 500),
+        ]
+    ).astype(probe_dtype)
+    _, _, mult, psum = _numpy_stats(keys, payloads, probe.astype(np.int64))
+    c, p = sorted_match_totals(st, jnp.asarray(probe))
+    assert int(c) == int(mult.sum())
+    assert int(p) == int(psum.sum())
 
 
 @pytest.mark.slow
 def test_sorted_expand_matches_bruteforce():
     """Gather-free materialization: exact multiset of matched
     (probe_row, build_key, build_payload) triples, overflow reported."""
-    from ccve_tpu.ops.sort_merge import sorted_expand
+    from ccve.ops.sort_merge import sorted_expand
 
     rng = np.random.default_rng(5)
     keys = np.repeat(np.arange(40, dtype=np.int64) * 3, 3)  # mult 3
@@ -179,214 +295,12 @@ def test_sorted_expand_matches_bruteforce():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("probe_dtype", [np.int64, np.int32])
-def test_pack32_out_of_range_probes(probe_dtype):
-    """Probe keys outside the build range (below kmin, above kmax,
-    extreme values) must clamp to matchless sentinels in the packed
-    kernel path — counts identical to the XLA path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ccve_tpu.ops.sort_merge import sorted_match_totals
-
-    keys = (np.arange(500, dtype=np.int64) * 7) + 1000  # kmin=1000
-    payloads = np.arange(500, dtype=np.int64) + 1
-    st = build_sorted(keys, payloads)
-    rng = np.random.default_rng(3)
-    lo = np.iinfo(probe_dtype).min
-    hi = np.iinfo(probe_dtype).max
-    probe = np.concatenate(
-        [
-            rng.choice(keys, 9000),
-            np.full(200, lo),
-            np.full(200, hi),
-            np.array([999, 1000, int(keys[-1]), int(keys[-1]) + 1] * 50),
-            rng.integers(-5000, 10000, 500),
-        ]
-    ).astype(probe_dtype)
-    ref_c, ref_p = sorted_match_totals(
-        st, jnp.asarray(probe.astype(np.int64)), use_kernel=False
-    )
-    with pltpu.force_tpu_interpret_mode():
-        c, p = sorted_match_totals(st, jnp.asarray(probe), use_kernel=True)
-    assert int(c) == int(ref_c)
-    assert int(p) == int(ref_p)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("probe_dtype", [np.int64, np.int32])
-@pytest.mark.parametrize("allow_negative", [False, True])
-def test_sorted_stats_pallas_path(probe_dtype, allow_negative):
-    """The multi-plane Pallas stats path (use_kernel=True, interpret
-    mode, shrunken tiles so the padded sort + unequal merge + unsort all
-    exercise the kernels) vs the XLA fallback on the same inputs."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rng = np.random.default_rng(17)
-    m, n = 3000, 9000
-    keys = np.sort(rng.integers(0, 500, m)).astype(np.int64)
-    payloads = rng.integers(-(2**20) if allow_negative else 0, 2**20, m)
-    st = build_sorted(keys, payloads)
-    assert st.pack32 is not None and st.pay32
-    probe = jnp.asarray(
-        rng.integers(-3, 510, n).astype(probe_dtype)
-    )
-    ref = sorted_match_stats(
-        st, probe, allow_negative=allow_negative, use_kernel=False
-    )
-    with pltpu.force_tpu_interpret_mode():
-        got = sorted_match_stats(
-            st,
-            probe,
-            allow_negative=allow_negative,
-            use_kernel=True,
-            tile_log=11,
-        )
-    np.testing.assert_array_equal(np.asarray(got.mult), np.asarray(ref.mult))
-    np.testing.assert_array_equal(np.asarray(got.psum), np.asarray(ref.psum))
-
-
-@pytest.mark.slow
-def test_sorted_stats_pallas_path_small_n():
-    """Below one tile every sort takes the lax.sort shortcut — the
-    packing/unsort logic (and the fused stats scan, which always runs
-    as a kernel) must still agree with the fallback."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rng = np.random.default_rng(23)
-    keys = np.sort(rng.integers(0, 50, 64)).astype(np.int64)
-    st = build_sorted(keys, None)
-    probe = jnp.asarray(rng.integers(0, 55, 200).astype(np.int64))
-    ref = sorted_match_stats(st, probe, use_kernel=False)
-    with pltpu.force_tpu_interpret_mode():
-        got = sorted_match_stats(st, probe, use_kernel=True)
-    np.testing.assert_array_equal(np.asarray(got.mult), np.asarray(ref.mult))
-    np.testing.assert_array_equal(np.asarray(got.psum), np.asarray(ref.psum))
-
-
-@pytest.mark.slow
-def test_sorted_expand_pallas_path():
-    """The multi-plane Pallas expand (interpret mode, shrunken tiles)
-    must produce the same triple multiset as the XLA fallback."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ccve_tpu.ops.sort_merge import sorted_expand
-
-    rng = np.random.default_rng(31)
-    keys = np.sort(np.repeat(rng.integers(0, 900, 1200), 2))  # mult >= 2
-    payloads = rng.integers(0, 2**20, keys.size)
-    st = build_sorted(keys, payloads)
-    assert st.pack32 is not None and st.pay32
-    probe = rng.integers(-5, 950, 5000).astype(np.int64)
-    cap = 1 << 14
-
-    r0, k0, p0, t0 = sorted_expand(
-        st, jnp.asarray(probe), cap, use_kernel=False
-    )
-    with pltpu.force_tpu_interpret_mode():
-        r1, k1, p1, t1 = sorted_expand(
-            st, jnp.asarray(probe), cap, use_kernel=True, tile_log=11
-        )
-    assert int(t0) == int(t1)
-
-    def triples(r, k, p):
-        return sorted(
-            (int(a), int(b), int(c))
-            for a, b, c in zip(np.asarray(r), np.asarray(k), np.asarray(p))
-            if a >= 0
-        )
-
-    assert triples(r1, k1, p1) == triples(r0, k0, p0)
-
-
-@pytest.mark.slow
-def test_sorted_expand_pallas_compact_branch():
-    """Sizes where the F*(m+n) candidate count is a multiple of 128:
-    the expand's final compaction dispatches to the stream-compaction
-    ring kernel (kernels/compact.pallas_compact_i32) instead of the
-    multi-plane compaction sort — same triple multiset either way."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ccve_tpu.ops.sort_merge import sorted_expand
-
-    rng = np.random.default_rng(37)
-    m, n = 2560, 5120  # (m + n) % 128 == 0 -> compact branch
-    keys = np.sort(np.repeat(rng.integers(0, 900, m // 2), 2))
-    payloads = rng.integers(0, 2**20, keys.size)
-    st = build_sorted(keys, payloads)
-    assert st.pack32 is not None and st.pay32
-    assert (max(int(st.max_mult), 1) * (m + n)) % 128 == 0
-    probe = rng.integers(-5, 950, n).astype(np.int64)
-    cap = 1 << 14
-
-    r0, k0, p0, t0 = sorted_expand(
-        st, jnp.asarray(probe), cap, use_kernel=False
-    )
-    with pltpu.force_tpu_interpret_mode():
-        r1, k1, p1, t1 = sorted_expand(
-            st, jnp.asarray(probe), cap, use_kernel=True, tile_log=11
-        )
-    assert int(t0) == int(t1)
-
-    def triples(r, k, p):
-        return sorted(
-            (int(a), int(b), int(c))
-            for a, b, c in zip(np.asarray(r), np.asarray(k), np.asarray(p))
-            if a >= 0
-        )
-
-    assert triples(r1, k1, p1) == triples(r0, k0, p0)
-
-
-@pytest.mark.slow
-def test_sorted_stats_pallas_path_wide_psum():
-    """Payloads too wide for the packed (psum << mult_bits | mult)
-    unsort plane: the 4-plane kernel variant must kick in and agree."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rng = np.random.default_rng(41)
-    m, n = 2000, 7000
-    keys = np.sort(rng.integers(0, 300, m)).astype(np.int64)
-    payloads = rng.integers(2**29, 2**30, m)  # pay_bits-1 ~ 30
-    st = build_sorted(keys, payloads)
-    assert st.pack32 is not None and st.pay32
-    probe = jnp.asarray(rng.integers(0, 310, n).astype(np.int64))
-    ref = sorted_match_stats(st, probe, use_kernel=False)
-    with pltpu.force_tpu_interpret_mode():
-        got = sorted_match_stats(st, probe, use_kernel=True, tile_log=11)
-    np.testing.assert_array_equal(np.asarray(got.mult), np.asarray(ref.mult))
-    np.testing.assert_array_equal(np.asarray(got.psum), np.asarray(ref.psum))
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("kmin", [-1000, -2**40])
-def test_sorted_stats_pallas_negative_key_range(kmin):
-    """pack32 with negative build-key ranges: key_lo arithmetic and the
-    i32/i64 probe packing must agree with the fallback."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    rng = np.random.default_rng(abs(kmin) % 97)
-    m, n = 1500, 6000
-    keys = np.sort(rng.integers(kmin, kmin + 400, m)).astype(np.int64)
-    payloads = rng.integers(0, 2**20, m)
-    st = build_sorted(keys, payloads)
-    assert st.pack32 is not None and st.pay32
-    probe = jnp.asarray(
-        rng.integers(kmin - 5, kmin + 410, n).astype(np.int64)
-    )
-    ref = sorted_match_stats(st, probe, use_kernel=False)
-    with pltpu.force_tpu_interpret_mode():
-        got = sorted_match_stats(st, probe, use_kernel=True, tile_log=11)
-    np.testing.assert_array_equal(np.asarray(got.mult), np.asarray(ref.mult))
-    np.testing.assert_array_equal(np.asarray(got.psum), np.asarray(ref.psum))
-
-
-@pytest.mark.slow
 def test_sorted_match_ranks():
     """(mult, start) recovered from the rank-index twin's payload sums
     vs searchsorted ground truth, duplicates + missing keys included."""
     import numpy as np
 
-    from ccve_tpu.ops.sort_merge import rank_table, sorted_match_ranks
+    from ccve.ops.sort_merge import rank_table, sorted_match_ranks
 
     rng = np.random.default_rng(11)
     for m, dom, n in [(100, 60, 500), (64, 64, 64), (1000, 5, 333)]:
@@ -404,182 +318,13 @@ def test_sorted_match_ranks():
         assert np.array_equal(start[live], e_start[live]), (m, dom, n)
 
 
-# ---------------------------------------------------------------------------
-# Wide key domains (span > 2^30): 2-plane limb-key Pallas paths
-# ---------------------------------------------------------------------------
-
-
-def _wide_setup(m=3000, n=9000, span=2**40, seed=3):
-    rng = np.random.default_rng(seed)
-    keys = rng.integers(-span, span, m, dtype=np.int64)
-    keys = np.concatenate([keys, keys[: m // 4]])  # duplicates
-    payloads = rng.integers(0, 2**30, keys.shape[0], dtype=np.int64)
-    table = build_sorted(keys, payloads)
-    probes = np.concatenate(
-        [
-            rng.choice(keys, n - 200),
-            rng.integers(-2 * span, 2 * span, 200, dtype=np.int64),
-        ]
-    )
-    rng.shuffle(probes)
-    return table, jnp.asarray(probes), keys, payloads, probes
-
-
-@pytest.mark.slow
-def test_sorted_stats_wide_pallas_matches_xla():
-    """>2^30-span int64 keys: the limb-key Pallas stats path must agree
-    exactly with the XLA fallback (and both with brute force)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    table, probes_d, keys, payloads, probes = _wide_setup()
-    assert table.pack32 is None and table.wide_ok
-    ref = sorted_match_stats(table, probes_d, use_kernel=False)
-    with pltpu.force_tpu_interpret_mode():
-        got = sorted_match_stats(table, probes_d, use_kernel=True)
-    assert np.array_equal(np.asarray(got.mult), np.asarray(ref.mult))
-    assert np.array_equal(np.asarray(got.psum), np.asarray(ref.psum))
-    # brute force spot-check
-    for i in [0, 7, 1000, len(probes) - 1]:
-        match = keys == probes[i]
-        assert int(got.mult[i]) == int(match.sum())
-        assert int(got.psum[i]) == int(payloads[match].sum())
-
-
-@pytest.mark.slow
-def test_sorted_totals_wide_pallas_matches_xla():
-    """Both wide count-side routes — the 2-plane limb ladder and the
-    round-5 SPLIT-PLANE ladder (single i32 compare plane + tie fixup)
-    — must agree exactly with the XLA fallback."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ccve_tpu.ops import sort_merge as sm
-
-    table, probes_d, keys, payloads, probes = _wide_setup(seed=11)
-    assert table.span_bits is not None and table.span_bits > 30
-    c_ref, p_ref = sorted_match_totals(table, probes_d, use_kernel=False)
-    old = sm.WIDE_COUNT_ROUTE
-    try:
-        for route in ("split", "split1", "limb"):
-            sm.WIDE_COUNT_ROUTE = route
-            with pltpu.force_tpu_interpret_mode():
-                c, p = sorted_match_totals(
-                    table, probes_d, use_kernel=True
-                )
-            assert int(c) == int(c_ref), route
-            assert int(p) == int(p_ref), route
-    finally:
-        sm.WIDE_COUNT_ROUTE = old
-
-
-@pytest.mark.slow
-def test_count_side_split_plane_ladder_path():
-    """The SPLIT-PLANE wide count engine with a SMALL tile so the
-    capped single-compare-plane ladder + tie fixup + limb reconstruct +
-    per-run merges all execute, including ADVERSARIAL s1 ties: keys
-    crafted to share the s1 prefix while differing only in the residue,
-    plus heavy duplicate probes — the verified while_loop must still
-    produce exact counts."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ccve_tpu.ops.sort_merge import _count_side_bc64_split
-
-    rng = np.random.default_rng(4)
-    span_bits = 38  # tagged; sh = 8 -> s1 = key' >> 8
-    base = rng.integers(0, 2**36, 300, dtype=np.int64) & ~np.int64(0x7F)
-    keys = np.sort(
-        np.concatenate([base + off for off in (0, 1, 5, 17)])
-    )  # 4 residue variants per s1 prefix
-    m = keys.shape[0]
-    probes = np.concatenate(
-        [
-            np.repeat(rng.choice(keys, 40), 120),  # heavy duplicates
-            rng.integers(0, 2**36, 3000, dtype=np.int64),
-        ]
-    )
-    rng.shuffle(probes)
-    key_lo = keys[0] - 1
-    key_hi = keys[-1] + 1
-    b64 = jnp.asarray(((keys - key_lo) << 1) | 1)
-    pcl = np.clip(probes, key_lo, key_hi)
-    p64 = jnp.asarray((pcl - key_lo) << 1)
-    sh = max(int(keys[-1] - keys[0] + 2).bit_length() + 1 - 30, 1)
-    from ccve_tpu.ops.sort_merge import _count_side_bc64_split1
-
-    expected = np.array([(probes == k).sum() for k in keys])
-    for fn in (_count_side_bc64_split, _count_side_bc64_split1):
-        with pltpu.force_tpu_interpret_mode():
-            bc = np.asarray(fn(p64, b64, m, sh, tile_log=10))
-        assert np.array_equal(bc, expected), fn.__name__
-
-
-@pytest.mark.slow
-def test_sorted_ranks_wide_pallas():
-    """The executor's rank pass on a wide-key table: the rank twin stays
-    wide-eligible and (mult, start) match the XLA path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    table, probes_d, keys, payloads, probes = _wide_setup(seed=5)
-    rt = rank_table(table)
-    assert rt.wide_ok
-    m_ref, s_ref = sorted_match_ranks(rt, probes_d, use_kernel=False)
-    with pltpu.force_tpu_interpret_mode():
-        m_got, s_got = sorted_match_ranks(rt, probes_d, use_kernel=True)
-    m_ref, s_ref = np.asarray(m_ref), np.asarray(s_ref)
-    m_got, s_got = np.asarray(m_got), np.asarray(s_got)
-    assert np.array_equal(m_got, m_ref)
-    assert np.array_equal(s_got[m_got > 0], s_ref[m_ref > 0])
-
-
-@pytest.mark.slow
-def test_count_side_bc64_ladder_path():
-    """Wide count-side engine with a SMALL tile so the early-stopped
-    limb ladder + per-run merges + 64-bit counts kernel all execute:
-    bc must equal the brute-force per-build-row probe counts."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ccve_tpu.ops.sort_merge import _count_side_bc64
-
-    rng = np.random.default_rng(9)
-    m, n = 700, 9000
-    keys = np.sort(rng.integers(0, 2**40, m, dtype=np.int64))
-    probes = np.concatenate(
-        [rng.choice(keys, n - 500),
-         rng.integers(0, 2**40, 500, dtype=np.int64)]
-    )
-    rng.shuffle(probes)
-    key_lo = keys[0] - 1
-    key_hi = keys[-1] + 1
-    b64 = jnp.asarray(((keys - key_lo) << 1) | 1)
-    pcl = np.clip(probes, key_lo, key_hi)
-    p64 = jnp.asarray((pcl - key_lo) << 1)
-    with pltpu.force_tpu_interpret_mode():
-        bc = np.asarray(_count_side_bc64(p64, b64, m, tile_log=10))
-    expected = np.array([(probes == k).sum() for k in keys])
-    # duplicate build keys: total per run lands on the run's entries
-    # cumulatively — compare per-key run totals instead of rows when
-    # keys repeat (here keys are unique with prob ~1; assert exact)
-    assert np.array_equal(bc, expected)
-
-
-@pytest.mark.slow
-def test_sorted_totals_wide_countside_matches_xla():
-    """Full wide totals (count-side v2) vs the XLA fallback."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    table, probes_d, keys, payloads, probes = _wide_setup(seed=21)
-    c_ref, p_ref = sorted_match_totals(table, probes_d, use_kernel=False)
-    with pltpu.force_tpu_interpret_mode():
-        c, p = sorted_match_totals(table, probes_d, use_kernel=True)
-    assert int(c) == int(c_ref)
-    assert int(p) == int(p_ref)
-
 
 def test_sorted_expand_tiled_matches_monolithic():
     """Capacity auto-tiling (sorted_expand_tiled): the per-tile triple
     multiset with GLOBAL row ids must equal the monolithic expand's,
     including a non-dividing tile size (sentinel-padded last tile) and
     a multiplicity > 1 table."""
-    from ccve_tpu.ops.sort_merge import sorted_expand, sorted_expand_tiled
+    from ccve.ops.sort_merge import sorted_expand, sorted_expand_tiled
 
     rng = np.random.default_rng(9)
     keys = np.repeat(np.arange(50, dtype=np.int64) * 2 + 7, 2)  # mult 2
@@ -611,63 +356,16 @@ def test_sorted_expand_tiled_matches_monolithic():
             assert len(tiles) == -(-probe.size // tile)
 
 
-@pytest.mark.slow
-def test_stats_early_stop_matches_full_ladder():
-    """Experimental early-stopped STATS route (STATS_EARLY_STOP): the
-    capped ladder + per-run [merge + fused scan] + one unsort must
-    reproduce the full-ladder stats bit for bit (per-probe order,
-    duplicates, out-of-range probes) — run independence of per-probe
-    stats."""
-    from jax.experimental.pallas import tpu as pltpu
 
-    from ccve_tpu.ops import sort_merge as sm
-
-    rng = np.random.default_rng(12)
-    m, n = 700, 9000
-    keys = np.repeat(rng.integers(0, 4000, m // 2, dtype=np.int64), 2)
-    payloads = np.arange(keys.size, dtype=np.int64) + 11
-    table = build_sorted(keys, payloads)
-    assert table.pack is not None and table.max_mult >= 2
-    probes = np.concatenate(
-        [rng.choice(keys, n - 500),
-         rng.integers(-100, 4400, 500, dtype=np.int64)]
-    )
-    rng.shuffle(probes)
-    probes_d = jnp.asarray(probes)
-    ref = sorted_match_stats(table, probes_d, use_kernel=False)
-    old = sm.STATS_EARLY_STOP
-    try:
-        sm.STATS_EARLY_STOP = True
-        with pltpu.force_tpu_interpret_mode():
-            got = sorted_match_stats(
-                table, probes_d, use_kernel=True, tile_log=10
-            )
-    finally:
-        sm.STATS_EARLY_STOP = old
-    assert np.array_equal(np.asarray(got.mult), np.asarray(ref.mult))
-    assert np.array_equal(np.asarray(got.psum), np.asarray(ref.psum))
-
-
-@pytest.mark.slow
-def test_sorted_stats_wide_split1_matches_xla():
-    """The single-plane wide STATS route (WIDE_STATS_ROUTE='split1')
-    must agree exactly with the XLA fallback, per probe, including
-    duplicates and out-of-range keys."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from ccve_tpu.ops import sort_merge as sm
-
-    table, probes_d, keys, payloads, probes = _wide_setup(seed=21)
-    assert table.wide_ok and 30 < table.span_bits <= 61
-    ref = sorted_match_stats(table, probes_d, use_kernel=False)
-    old = sm.WIDE_STATS_ROUTE
-    try:
-        sm.WIDE_STATS_ROUTE = "split1"
-        with pltpu.force_tpu_interpret_mode():
-            got = sorted_match_stats(
-                table, probes_d, use_kernel=True, tile_log=10
-            )
-    finally:
-        sm.WIDE_STATS_ROUTE = old
-    assert np.array_equal(np.asarray(got.mult), np.asarray(ref.mult))
-    assert np.array_equal(np.asarray(got.psum), np.asarray(ref.psum))
+def test_sorted_expand_tiled_empty_table():
+    """An empty build table with a probe stream longer than one tile:
+    no pad key can be read off the table, nothing matches, every tile
+    is empty."""
+    st = build_sorted(np.zeros(0, np.int64), np.zeros(0, np.int64))
+    probe = np.arange(1000, dtype=np.int64)
+    tiles, total = sorted_expand_tiled(st, probe, tile_rows=384)
+    assert total == 0
+    assert len(tiles) == 3
+    for rows, _, _, t in tiles:
+        assert int(t) == 0
+        assert (np.asarray(rows) == -1).all()

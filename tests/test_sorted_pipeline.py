@@ -1,22 +1,23 @@
 """Sorted-chunk pipelined executor (exec/sorted_pipeline.py) vs the scalar
 oracle — same matrix as test_pipeline.py (strategies, payload modes,
-multiplicities, prefilter, count-only), plus the fused chunk-probe kernel
-in Pallas interpret mode."""
+multiplicities, prefilter, count-only), both rank modes, and the
+count-only drain's scenarios (occupancy, tuner counters, cache splits,
+wide keys)."""
 
 import dataclasses
 
 import numpy as np
 import pytest
 
-from ccve_tpu.config import CompactionStrategy, EngineConfig, PayloadMode
-from ccve_tpu.core.datagen import gen_probe_table, gen_rhs_table
-from ccve_tpu.exec.oracle import (
+from ccve.config import CompactionStrategy, EngineConfig, PayloadMode
+from ccve.core.datagen import gen_probe_table, gen_rhs_table
+from ccve.exec.oracle import (
     OracleBuildTable,
     assert_same_multiset,
     oracle_pipeline,
 )
-from ccve_tpu.exec.sorted_pipeline import SortedPipeline
-from ccve_tpu.ops.sort_merge import build_sorted
+from ccve.exec.sorted_pipeline import SortedPipeline
+from ccve.ops.sort_merge import build_sorted
 
 BLOCK = 128
 
@@ -54,8 +55,7 @@ def test_sorted_pipeline_matches_oracle(strategy):
         n_joins=2, lhs=700, rhs=96, chunk_factor=2,
         strategy=strategy, payload_mode=PayloadMode.FULL,
     )
-    pipe = SortedPipeline(tables, cfg, result_capacity=8192,
-                          use_kernel=False)
+    pipe = SortedPipeline(tables, cfg, result_capacity=8192)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert not out["overflowed"]
@@ -68,8 +68,7 @@ def test_sorted_pipeline_reference_mode():
         strategy=CompactionStrategy.FULL,
         payload_mode=PayloadMode.REFERENCE,
     )
-    pipe = SortedPipeline(tables, cfg, result_capacity=4096,
-                          use_kernel=False)
+    pipe = SortedPipeline(tables, cfg, result_capacity=4096)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert_same_multiset(out["rows"], expected)
@@ -85,8 +84,7 @@ def test_sorted_pipeline_dynamic_strategy():
     cfg = dataclasses.replace(
         cfg, threshold_arms=(0, 32, 64, 128), tuner_segment_chunks=2
     )
-    pipe = SortedPipeline(tables, cfg, result_capacity=8192,
-                          use_kernel=False)
+    pipe = SortedPipeline(tables, cfg, result_capacity=8192)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert_same_multiset(out["rows"], expected)
@@ -97,8 +95,7 @@ def test_sorted_pipeline_three_way_high_multiplicity():
         n_joins=3, lhs=220, rhs=32, chunk_factor=4,
         strategy=CompactionStrategy.FULL, payload_mode=PayloadMode.FULL,
     )
-    pipe = SortedPipeline(tables, cfg, result_capacity=1 << 17,
-                          use_kernel=False)
+    pipe = SortedPipeline(tables, cfg, result_capacity=1 << 17)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert not out["overflowed"]
@@ -119,8 +116,7 @@ def test_sorted_pipeline_branchy_descend(strategy):
     outs = []
     for branchy in (False, True):
         c = dataclasses.replace(cfg, branchy_descend=branchy)
-        pipe = SortedPipeline(tables, c, result_capacity=8192,
-                              use_kernel=False)
+        pipe = SortedPipeline(tables, c, result_capacity=8192)
         out = pipe.run(probe)
         assert out["count"] == expected.shape[0]
         assert_same_multiset(out["rows"], expected)
@@ -139,8 +135,7 @@ def test_sorted_pipeline_per_level_thresholds():
     cfg = dataclasses.replace(
         cfg, compact_threshold_per_level=(0, BLOCK, 0)
     )
-    pipe = SortedPipeline(tables, cfg, result_capacity=1 << 15,
-                          use_kernel=False)
+    pipe = SortedPipeline(tables, cfg, result_capacity=1 << 15)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert not out["overflowed"]
@@ -158,8 +153,7 @@ def test_sorted_pipeline_dynamic_cond_compact():
     cfg = dataclasses.replace(
         cfg, branchy_descend=True, threshold_arms=(0, BLOCK)
     )
-    pipe = SortedPipeline(tables, cfg, result_capacity=8192,
-                          use_kernel=False)
+    pipe = SortedPipeline(tables, cfg, result_capacity=8192)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert_same_multiset(out["rows"], expected)
@@ -179,8 +173,7 @@ def test_sorted_pipeline_device_tuner():
         cfg, device_tuner=True, threshold_arms=(0, BLOCK),
         tuner_segment_chunks=2,
     )
-    pipe = SortedPipeline(tables, cfg, result_capacity=1 << 14,
-                          use_kernel=False)
+    pipe = SortedPipeline(tables, cfg, result_capacity=1 << 14)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert_same_multiset(out["rows"], expected)
@@ -195,13 +188,13 @@ def test_sorted_pipeline_count_only():
         payload_mode=PayloadMode.REFERENCE,
     )
     cfg = dataclasses.replace(cfg, collect_tuples=False)
-    pipe = SortedPipeline(tables, cfg, use_kernel=False)
+    pipe = SortedPipeline(tables, cfg)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
 
 
 def test_sorted_pipeline_with_prefilter():
-    from ccve_tpu.ops import filter as flt
+    from ccve.ops import filter as flt
 
     cfg = EngineConfig(
         block_size=BLOCK, n_joins=2, lhs_size=900, rhs_size=96,
@@ -218,7 +211,7 @@ def test_sorted_pipeline_with_prefilter():
     )
     pipe = SortedPipeline(
         tables, cfg, result_capacity=8192,
-        prefilter=flt.mod_eq(8, 0), prefilter_col=0, use_kernel=False,
+        prefilter=flt.mod_eq(8, 0), prefilter_col=0,
     )
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
@@ -226,38 +219,12 @@ def test_sorted_pipeline_with_prefilter():
     assert out["occupancy"].sum() > 0
 
 
-@pytest.mark.parametrize(
-    "strategy", [CompactionStrategy.NONE, CompactionStrategy.FULL]
-)
-@pytest.mark.slow
-def test_sorted_pipeline_kernel_interpret(strategy):
-    """The fused Pallas chunk-probe kernel (interpret mode on CPU)
-    through the whole executor, duplicates included."""
-    cfg, probe, tables, expected = _setup(
-        n_joins=2, lhs=500, rhs=70, chunk_factor=2,
-        strategy=strategy, payload_mode=PayloadMode.FULL, block=256,
-    )
-    assert all(t.pack32 is not None for t in tables)
-    pipe = SortedPipeline(tables, cfg, result_capacity=8192,
-                          use_kernel=True, interpret=True,
-                          rank_mode="chunk")
-    assert all(pipe._kernel_level)
-    out = pipe.run(probe)
-    assert out["count"] == expected.shape[0]
-    assert_same_multiset(out["rows"], expected)
-
-
-@pytest.mark.slow
-def test_chunk_rank_kernel_interpret():
-    """Unit: kernel (mult, start) vs searchsorted, tables around the
-    block size, partial counts, out-of-range keys, duplicates."""
+def test_chunk_rank_matches_searchsorted():
+    """Unit: per-chunk (mult, start) vs NumPy, tables around the block
+    size, partial counts, out-of-range keys, duplicates."""
     import jax.numpy as jnp
 
-    from ccve_tpu.kernels.chunk_probe import (
-        I32_MAX,
-        chunk_rank,
-        stage_table_planes,
-    )
+    from ccve.exec.sorted_pipeline import chunk_rank
 
     rng = np.random.default_rng(0)
     block = 256
@@ -265,15 +232,11 @@ def test_chunk_rank_kernel_interpret():
         (500, 400, 256), (30, 400, 170), (256, 256, 0), (700, 10, 256),
     ]:
         tk = np.sort(rng.integers(0, dom, m).astype(np.int64))
-        kmin = int(tk.min())
         keys = rng.integers(-5, dom + 5, block).astype(np.int64)
         valid = np.arange(block) < count
-        hi = int(tk.max()) - kmin + 2
-        kp = np.clip(keys - kmin + 1, 0, hi)
-        pk = np.where(valid, (kp << 1) | 1, I32_MAX).astype(np.int32)
-        tpk = stage_table_planes(((tk - kmin + 1) << 1).astype(np.int32),
-                                 block)
-        mult, start = chunk_rank(tpk, m, jnp.asarray(pk), interpret=True)
+        mult, start = chunk_rank(
+            jnp.asarray(tk), jnp.asarray(keys), jnp.asarray(valid)
+        )
         mult, start = np.asarray(mult), np.asarray(start)
         e_start = np.searchsorted(tk, keys, side="left")
         e_mult = np.where(
@@ -294,7 +257,7 @@ def test_sorted_pipeline_rank_modes_agree(rank_mode):
         strategy=CompactionStrategy.FULL, payload_mode=PayloadMode.FULL,
     )
     pipe = SortedPipeline(tables, cfg, result_capacity=1 << 17,
-                          use_kernel=False, rank_mode=rank_mode)
+                          rank_mode=rank_mode)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert not out["overflowed"]
@@ -330,8 +293,7 @@ def test_sorted_pipeline_batched_wide_keys():
     expected = oracle_pipeline(
         probe, [OracleBuildTable(keys, payloads)] * 2, PayloadMode.FULL
     )
-    pipe = SortedPipeline(tables, cfg, result_capacity=1 << 15,
-                          use_kernel=False)
+    pipe = SortedPipeline(tables, cfg, result_capacity=1 << 15)
     out = pipe.run(probe)
     assert out["count"] == expected.shape[0]
     assert_same_multiset(out["rows"], expected)
@@ -350,19 +312,28 @@ def test_sorted_pipeline_count_collapse(strategy):
         n_joins=2, lhs=900, rhs=64, chunk_factor=3,
         strategy=strategy, payload_mode=PayloadMode.REFERENCE,
     )
-    collecting = SortedPipeline(tables, cfg, result_capacity=1 << 15,
-                                use_kernel=False)
+    collecting = SortedPipeline(tables, cfg, result_capacity=1 << 15)
     r1 = collecting.run(probe)
     assert r1["count"] == expected.shape[0]
     cfg2 = dataclasses.replace(cfg, collect_tuples=False)
-    counting = SortedPipeline(tables, cfg2, use_kernel=False)
+    counting = SortedPipeline(tables, cfg2)
     r2 = counting.run(probe)
     assert r2["count"] == expected.shape[0]
 
 
+
+
 # ---------------------------------------------------------------------------
-# Fused per-segment drain kernel (kernels/drain.py), interpret mode
+# Count-only drain scenarios (the XLA drain every backend runs)
 # ---------------------------------------------------------------------------
+
+
+def _count_only_expected(probe, tables, payload_mode=PayloadMode.REFERENCE):
+    oracles = [
+        OracleBuildTable(np.asarray(t.keys), np.asarray(t.payloads))
+        for t in tables
+    ]
+    return oracle_pipeline(probe, oracles, payload_mode).shape[0]
 
 
 @pytest.mark.parametrize(
@@ -374,30 +345,21 @@ def test_sorted_pipeline_count_collapse(strategy):
     ],
 )
 @pytest.mark.parametrize("n_joins,chunk_factor", [(1, 1), (2, 2), (3, 1)])
-def test_fused_drain_count_matches_oracle(strategy, n_joins, chunk_factor):
-    """Count-only runs take the fused drain (one pallas_call per
-    segment, caches in VMEM scratch); the count must equal the oracle's
-    row count exactly, and the XLA drain's, for every strategy."""
+def test_drain_count_matches_oracle(strategy, n_joins, chunk_factor):
+    """Count-only runs (final-level count collapse) equal the oracle's
+    row count exactly, for every static strategy and level count."""
     cfg, probe, tables, expected = _setup(
         n_joins=n_joins, lhs=700, rhs=96, chunk_factor=chunk_factor,
         strategy=strategy, payload_mode=PayloadMode.REFERENCE,
     )
     cfg = dataclasses.replace(cfg, collect_tuples=False)
-    pipe = SortedPipeline(tables, cfg, interpret=True)
-    assert pipe._fused_drain_ok, "fused drain must be eligible here"
-    out = pipe.run(probe)
+    out = SortedPipeline(tables, cfg).run(probe)
     assert out["count"] == expected.shape[0]
-    # cross-check vs the unfused path (same pipeline semantics)
-    pipe2 = SortedPipeline(tables, cfg, use_kernel=False)
-    pipe2._fused_drain_ok = False
-    out2 = pipe2.run(probe)
-    assert out2["count"] == expected.shape[0]
 
 
-def test_fused_drain_prefilter_and_uneven_tail():
-    """Prefilter masking + a last chunk with count < block must flow
-    through the fused drain correctly."""
-    from ccve_tpu.ops import filter as flt
+def test_drain_prefilter_and_uneven_tail():
+    """Prefilter masking + a last chunk with count < block."""
+    from ccve.ops import filter as flt
 
     cfg, probe, tables, _ = _setup(
         n_joins=1, lhs=701, rhs=64, chunk_factor=2,
@@ -406,23 +368,14 @@ def test_fused_drain_prefilter_and_uneven_tail():
     )
     cfg = dataclasses.replace(cfg, collect_tuples=False)
     kept = probe[probe[:, 0] % 3 == 0]
-    expected = oracle_pipeline(
-        kept,
-        [OracleBuildTable(np.asarray(tables[0].keys),
-                          np.asarray(tables[0].payloads))],
-        PayloadMode.REFERENCE,
-    )
-    pipe = SortedPipeline(
-        tables, cfg, prefilter=flt.mod_eq(3, 0), interpret=True
-    )
-    assert pipe._fused_drain_ok
+    pipe = SortedPipeline(tables, cfg, prefilter=flt.mod_eq(3, 0))
     out = pipe.run(probe)
-    assert out["count"] == expected.shape[0]
+    assert out["count"] == _count_only_expected(kept, tables)
 
 
-def test_fused_drain_device_dynamic_count():
-    """DYNAMIC with the on-device tuner rides the fused drain (traced
-    thresholds + in-kernel work counters) — counts stay oracle-exact."""
+def test_drain_device_dynamic_count():
+    """DYNAMIC with the on-device tuner (traced thresholds, work
+    counters) — counts stay oracle-exact."""
     cfg, probe, tables, expected = _setup(
         n_joins=2, lhs=900, rhs=96, chunk_factor=1,
         strategy=CompactionStrategy.DYNAMIC,
@@ -432,33 +385,29 @@ def test_fused_drain_device_dynamic_count():
         cfg, collect_tuples=False, device_tuner=True,
         tuner_segment_chunks=2,
     )
-    pipe = SortedPipeline(tables, cfg, interpret=True)
-    assert pipe._fused_drain_ok
-    out = pipe.run(probe)
+    out = SortedPipeline(tables, cfg).run(probe)
     assert out["count"] == expected.shape[0]
 
 
-def test_fused_drain_sustained_mode():
+def test_drain_sustained_mode():
     """run(sustain=N) chains N full runs in one dispatch; per-run count
-    must equal a plain run's."""
+    must equal the oracle's."""
     cfg, probe, tables, expected = _setup(
         n_joins=2, lhs=600, rhs=96, chunk_factor=1,
         strategy=CompactionStrategy.FULL,
         payload_mode=PayloadMode.REFERENCE,
     )
     cfg = dataclasses.replace(cfg, collect_tuples=False)
-    pipe = SortedPipeline(tables, cfg, interpret=True)
-    r = pipe.run(probe, preload=True, sustain=3)
+    r = SortedPipeline(tables, cfg).run(probe, preload=True, sustain=3)
     assert r["count"] == expected.shape[0]
     assert r["sustained"] == 3
 
 
 @pytest.mark.parametrize("threshold_frac", [2, 4])
-def test_fused_drain_cache_split_paths(threshold_frac):
-    """Force the compactor's cache-overflow SPLIT inside the fused
-    kernel (emit the filled cache, keep the remainder): mid thresholds
-    + fanout 2 produce emissions of varying size that repeatedly fill
-    and split the cache. Counts must stay oracle-exact."""
+def test_drain_cache_split_paths(threshold_frac):
+    """Mid thresholds + fanout 2 produce emissions of varying size that
+    repeatedly fill and split the compactor cache (emit the filled
+    cache, keep the remainder). Counts must stay oracle-exact."""
     block = 128
     cfg, probe, tables, expected = _setup(
         n_joins=2, lhs=1500, rhs=64, chunk_factor=2,
@@ -469,20 +418,17 @@ def test_fused_drain_cache_split_paths(threshold_frac):
         cfg, collect_tuples=False,
         compact_threshold_per_level=(block // threshold_frac,) * 2,
     )
-    pipe = SortedPipeline(tables, cfg, interpret=True)
-    assert pipe._fused_drain_ok
-    out = pipe.run(probe)
+    out = SortedPipeline(tables, cfg).run(probe)
     assert out["count"] == expected.shape[0]
 
 
-def test_fused_drain_work_counters_match_xla_path():
-    """The in-kernel work counters feed the device tuner's reward; they
-    must equal the XLA drain's level_steps / level_rows accounting for
-    the same stream and thresholds, and the cache states must agree."""
-    import jax
+def test_drain_work_counters_account_every_row():
+    """The work counters feed the device tuner's reward: level 0 sees
+    every input row once, deeper levels never see more rows than their
+    parent emitted, and one segment scan + flush equals the oracle."""
     import jax.numpy as jnp
 
-    cfg, probe, tables, _ = _setup(
+    cfg, probe, tables, expected = _setup(
         n_joins=2, lhs=900, rhs=96, chunk_factor=2,
         strategy=CompactionStrategy.DYNAMIC,
         payload_mode=PayloadMode.REFERENCE,
@@ -490,46 +436,29 @@ def test_fused_drain_work_counters_match_xla_path():
     cfg = dataclasses.replace(
         cfg, collect_tuples=False, device_tuner=True
     )
-    pipes = {
-        "fused": SortedPipeline(tables, cfg, interpret=True),
-        "xla": SortedPipeline(tables, cfg, use_kernel=False),
-    }
-    pipes["xla"]._fused_drain_ok = False
-    assert pipes["fused"]._fused_drain_ok
-
+    pipe = SortedPipeline(tables, cfg)
     block = cfg.block_size
     n = probe.shape[0]
     S = -(-n // block)
     cols = np.zeros((S * block, 2), np.int64)
     cols[:n] = probe
     chunk_cols = jnp.asarray(
-        np.ascontiguousarray(
-            np.swapaxes(cols.reshape(S, block, 2), 1, 2)
-        )
+        np.ascontiguousarray(np.swapaxes(cols.reshape(S, block, 2), 1, 2))
     )
     counts = jnp.asarray(
-        np.r_[np.full(S - 1, block, np.int32), [block - (S * block - n)]]
+        np.r_[np.full(S - 1, block), [block - (S * block - n)]],
+        jnp.int32,
     )
     thr = jnp.asarray([block, block // 2], jnp.int32)
-
-    states = {}
-    for name, pipe in pipes.items():
-        ps = pipe._scan_chunks(
-            pipe.fresh_state(), chunk_cols, counts, thr
-        )
-        states[name] = jax.tree.map(np.asarray, ps)
-    f, x = states["fused"], states["xla"]
-    assert int(f.result_count) == int(x.result_count)
-    assert np.array_equal(f.level_steps, x.level_steps), (
-        f.level_steps, x.level_steps,
-    )
-    assert np.array_equal(f.level_rows, x.level_rows), (
-        f.level_rows, x.level_rows,
-    )
-    assert np.array_equal(f.cache_count, x.cache_count)
+    ps = pipe._scan_chunks(pipe.fresh_state(), chunk_cols, counts, thr)
+    ps = pipe._flush_all(ps, thr)
+    assert int(ps.result_count) == expected.shape[0]
+    assert int(ps.level_rows[0]) == n
+    assert int(ps.level_steps[0]) >= S  # entries + compact executions
+    assert int(ps.level_rows[1]) <= expected.shape[0]
 
 
-def test_fused_drain_device_dynamic_preload_single_dispatch():
+def test_drain_device_dynamic_preload_single_dispatch():
     """Preloaded DYNAMIC runs the whole tuned stream as ONE lax.scan
     dispatch (bandit state carried); counts must stay oracle-exact and
     match the streamed path's."""
@@ -542,7 +471,7 @@ def test_fused_drain_device_dynamic_preload_single_dispatch():
         cfg, collect_tuples=False, device_tuner=True,
         tuner_segment_chunks=2,
     )
-    pipe = SortedPipeline(tables, cfg, interpret=True)
+    pipe = SortedPipeline(tables, cfg)
     out = pipe.run(probe, preload=True)
     assert out["count"] == expected.shape[0]
     out2 = pipe.run(probe)  # streamed path
@@ -554,78 +483,60 @@ def test_fused_drain_device_dynamic_preload_single_dispatch():
     [CompactionStrategy.NONE, CompactionStrategy.FULL,
      CompactionStrategy.BINARY],
 )
-def test_fused_drain_occupancy_matches_xla(strategy):
-    """Round-5: record_occupancy no longer falls back to the XLA drain.
-    The kernel's in-VMEM Zebra histograms (incl. the final level's real
-    compactor count algebra) must equal the XLA drain's occupancy table
-    BIN FOR BIN, and counts must stay oracle-exact."""
+def test_drain_occupancy_matches_collecting_run(strategy):
+    """record_occupancy keeps the final level's real compactor in the
+    count-only run (no count collapse); its Zebra histograms must equal
+    a collecting run's BIN FOR BIN, and counts stay oracle-exact."""
     cfg, probe, tables, expected = _setup(
         n_joins=2, lhs=700, rhs=96, chunk_factor=2,
         strategy=strategy, payload_mode=PayloadMode.REFERENCE,
     )
-    cfg = dataclasses.replace(
-        cfg, collect_tuples=False, record_occupancy=True
-    )
-    pipe = SortedPipeline(tables, cfg, interpret=True)
-    assert pipe._fused_drain_ok, "occupancy must not disable the kernel"
-    out = pipe.run(probe)
+    cfg = dataclasses.replace(cfg, record_occupancy=True)
+    counting = dataclasses.replace(cfg, collect_tuples=False)
+    out = SortedPipeline(tables, counting).run(probe)
     assert out["count"] == expected.shape[0]
-
-    pipe2 = SortedPipeline(tables, cfg, use_kernel=False)
-    assert not pipe2._fused_drain_ok
-    out2 = pipe2.run(probe)
+    out2 = SortedPipeline(tables, cfg, result_capacity=1 << 14).run(probe)
     assert out2["count"] == expected.shape[0]
-    occ_k = np.asarray(out["occupancy"])
-    occ_x = np.asarray(out2["occupancy"])
-    assert np.array_equal(occ_k, occ_x), (
-        occ_k.nonzero(), occ_x.nonzero()
-    )
-    assert occ_k.sum() > 0
+    occ_c = np.asarray(out["occupancy"])
+    occ_m = np.asarray(out2["occupancy"])
+    assert np.array_equal(occ_c, occ_m), (occ_c.nonzero(), occ_m.nonzero())
+    assert occ_c.sum() > 0
 
 
-def test_fused_drain_support_matrix():
-    """The COMPONENTS.md support matrix, executable: which workload
-    axes ride the fused drain kernel and which fall back to the XLA
-    drain (and why)."""
-    def mk(block=BLOCK, capacity=0, occupancy=False, chunk_factor=1,
-           strategy=CompactionStrategy.FULL, rank_mode="batched",
-           n_joins=2, use_kernel=True):
+def test_drain_support_matrix():
+    """The COMPONENTS.md drain matrix, executable: every workload axis
+    runs on the one XLA drain and stays oracle-exact."""
+    def run(capacity=0, occupancy=False, chunk_factor=1,
+            strategy=CompactionStrategy.FULL, rank_mode="batched",
+            n_joins=2):
         cfg = EngineConfig(
-            block_size=block, n_joins=n_joins, lhs_size=256, rhs_size=64,
+            block_size=BLOCK, n_joins=n_joins, lhs_size=256, rhs_size=64,
             chunk_factor=chunk_factor, strategy=strategy,
             payload_mode=PayloadMode.REFERENCE,
             collect_tuples=capacity > 0, record_occupancy=occupancy,
         )
+        probe = gen_probe_table(256, n_joins, 64)
         keys, payloads = gen_rhs_table(64, chunk_factor)
         tables = [build_sorted(keys, payloads) for _ in range(n_joins)]
-        return SortedPipeline(
+        out = SortedPipeline(
             tables, cfg, result_capacity=capacity or None,
-            use_kernel=use_kernel, interpret=use_kernel,
             rank_mode=rank_mode,
-        )
+        ).run(probe)
+        assert out["count"] == _count_only_expected(probe, tables)
 
-    # fused: count-only statics, DYNAMIC, Zebra occupancy (round 5),
-    # and deep fan-outs up to 64 drain paths
-    assert mk()._fused_drain_ok
-    assert mk(strategy=CompactionStrategy.DYNAMIC)._fused_drain_ok
-    assert mk(strategy=CompactionStrategy.NONE)._fused_drain_ok
-    assert mk(occupancy=True)._fused_drain_ok
-    assert mk(chunk_factor=8)._fused_drain_ok  # 8 paths (2 levels)
-
-    # XLA drain: materializing collector (capacity > 0), per-chunk rank
-    # mode, >64 drain paths, sub-128 blocks
-    assert not mk(capacity=8192)._fused_drain_ok
-    assert not mk(rank_mode="chunk")._fused_drain_ok
-    assert not mk(chunk_factor=65, n_joins=3)._fused_drain_ok
-    # (block_size < 128 is rejected by EngineConfig itself — the
-    # kernel's block >= 128 guard is defensive, not a reachable axis)
+    run()
+    run(strategy=CompactionStrategy.DYNAMIC)
+    run(strategy=CompactionStrategy.NONE)
+    run(occupancy=True)
+    run(chunk_factor=8)
+    run(capacity=1 << 15)
+    run(rank_mode="chunk")
+    run(chunk_factor=9, n_joins=3)  # 81 drain paths
 
 
-def test_fused_drain_wide_keys_count_only():
-    """Wide (>2^30-span) keys × {FULL, DYNAMIC} on the FUSED drain:
-    the batched rank pass serves mult planes from the wide-key route
-    and the kernel path stays oracle-exact — wide keys are NOT a
-    fallback axis for count-only runs."""
+def test_drain_wide_keys_count_only():
+    """Wide (>2^30-span) keys × {FULL, DYNAMIC} count-only: the batched
+    rank pass serves mult from the int64 stats path; oracle-exact."""
     for strategy in (CompactionStrategy.FULL, CompactionStrategy.DYNAMIC):
         cfg = EngineConfig(
             block_size=BLOCK, n_joins=2, lhs_size=400, rhs_size=64,
@@ -648,11 +559,5 @@ def test_fused_drain_wide_keys_count_only():
         rng.shuffle(probe, axis=0)
         tables = [build_sorted(keys, payloads) for _ in range(2)]
         assert tables[0].pack32 is None and tables[0].span62
-        expected = oracle_pipeline(
-            probe, [OracleBuildTable(keys, payloads)] * 2,
-            PayloadMode.REFERENCE,
-        )
-        pipe = SortedPipeline(tables, cfg, interpret=True)
-        assert pipe._fused_drain_ok
-        out = pipe.run(probe)
-        assert out["count"] == expected.shape[0], strategy
+        out = SortedPipeline(tables, cfg).run(probe)
+        assert out["count"] == _count_only_expected(probe, tables), strategy
